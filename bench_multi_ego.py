@@ -1,4 +1,4 @@
-"""Multi-ego performance artifact (BASELINE config 4, MULTIEGO_r0N.json).
+"""Multi-ego performance harness (BASELINE config 4).
 
 The reference *intended* interactive multi-ego MPC and never ran it
 (``main/scenarios/interactive_mpc.py:117-190`` — undefined names, SURVEY
@@ -8,7 +8,7 @@ commits the missing performance numbers (VERDICT r3 item 3):
 - p50/p95 single-junction tick latency at E=8 (every ego running the full
   bi-level stack against peer predictions),
 - fleet throughput: S independent 8-ego junctions per tick via
-  ``multi_ego_fleet_tick`` (all S*E QPs in one fused-kernel launch),
+  ``multi_ego_fleet_tick`` (all S*E QPs in one batched solve),
   swept S in powers of two to the largest that still meets the dt=200 ms
   realtime budget,
 - a zero-ego-ego-collision check over a full episode (outcome parity with
@@ -18,7 +18,6 @@ Prints one JSON object; pass a path to persist it.
 """
 
 import json
-import pathlib
 import statistics
 import sys
 import time
@@ -33,10 +32,9 @@ REALTIME_MS = 200.0
 def main():
     import jax
 
-    cache_dir = pathlib.Path(__file__).parent / ".jax_cache"
-    cache_dir.mkdir(exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", str(cache_dir))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+    from mpc_for_av_at_intersection_tpu.backend import enable_compile_cache
+
+    enable_compile_cache()
 
     import jax.numpy as jnp
 
@@ -57,10 +55,8 @@ def main():
         primitive_table,
     )
     from mpc_for_av_at_intersection_tpu.models import bicycle_geometry
-    from mpc_for_av_at_intersection_tpu.utils.benchtime import fetch_scalar
     from mpc_for_av_at_intersection_tpu.worlds import intersection_multi_lanes
 
-    use_pallas = jax.default_backend() == "tpu"
     geom = bicycle_geometry()
     table = primitive_table(geom)
     cfg = EngineConfig(n_agents=2)
@@ -90,8 +86,7 @@ def main():
 
     # ---- outcome check: full episode, goals + zero ego-ego collision ----
     run = jax.jit(
-        lambda w, s: run_multi_ego_episode(w, s, cfg, geom, N_STEPS,
-                                           use_pallas=use_pallas))
+        lambda w, s: run_multi_ego_episode(w, s, cfg, geom, N_STEPS))
     final, tel = run(world, st0)
     tel = jax.tree.map(np.asarray, tel)
     n_done = int(np.sum(np.asarray(final.done)))
@@ -119,8 +114,7 @@ def main():
 
     # ---- p50/p95 single-junction tick latency (E=8) ----
     tick1 = jax.jit(
-        lambda s: multi_ego_tick_batched(world, s, cfg, geom,
-                                         use_pallas=use_pallas))
+        lambda s: multi_ego_tick_batched(world, s, cfg, geom))
     st = st0
     st, _ = tick1(st)
     jax.tree.map(lambda a: a.block_until_ready(), st)
@@ -128,7 +122,7 @@ def main():
     for _ in range(50):
         t0 = time.perf_counter()
         st, tel_t = tick1(st)
-        fetch_scalar(tel_t.accel)
+        jax.block_until_ready(tel_t.accel)
         lats.append(time.perf_counter() - t0)
     lats_ms = sorted(v * 1e3 for v in lats)
     report["tick_latency_ms"] = {
@@ -151,19 +145,18 @@ def main():
         @jax.jit
         def chain(w, s):
             def body(s_, _):
-                s2, _tel = multi_ego_fleet_tick(w, s_, cfg, geom,
-                                                use_pallas=use_pallas)
+                s2, _tel = multi_ego_fleet_tick(w, s_, cfg, geom)
                 return s2, ()
             sf, _ = jax.lax.scan(body, s, None, length=K)
             return sf.egos
 
         out = chain(worldS, stS)
-        fetch_scalar(out)                      # compile + first exec
+        jax.block_until_ready(out)             # compile + first exec
         ts = []
         for _ in range(3):
             t0 = time.perf_counter()
             out = chain(worldS, stS)
-            fetch_scalar(out)
+            jax.block_until_ready(out)
             ts.append((time.perf_counter() - t0) / K)
         tick_ms = statistics.median(ts) * 1e3
         row = {"S": S, "egos": S * E, "tick_ms": round(tick_ms, 2),

@@ -1,4 +1,4 @@
-"""TPU-native bi-level motion planner for autonomous vehicles at urban junctions.
+"""Batched bi-level motion planner for autonomous vehicles at urban junctions.
 
 A from-scratch rebuild of the capabilities of
 ``SaeedRahmani/MPC_for_AV_at_Intersection`` (see SURVEY.md) as a batched,
@@ -13,7 +13,8 @@ functional, jit-compiled JAX framework:
 - ``mpc``      — batched condensed-QP tracking controller (ADMM + polish)
 - ``engine``   — jitted closed-loop receding-horizon simulation
 - ``parallel`` — mesh / shard_map scale-out over the scenario batch
-- ``ops``      — Pallas TPU kernels
+- ``ops``      — hand-written GPU kernels (Pallas, Triton route)
+- ``backend``  — per-platform choice of each stage's implementation
 """
 
 __version__ = "0.1.0"

@@ -267,7 +267,6 @@ def plan_courses_batch(
     weights: SearchWeights = SearchWeights.modified(),
     planner: str = "device",
     wavefront_cfg=None,
-    max_expansions: int = 8192,
 ):
     """Plan a batch of scenarios' global courses.
 
@@ -285,7 +284,6 @@ def plan_courses_batch(
 
         res = plan_courses_device(
             scenarios, geom, weights=weights, cfg=wavefront_cfg,
-            max_expansions=max_expansions,
         )
         found = np.asarray(res.found)
         n_points = np.asarray(res.n_points)
@@ -515,9 +513,9 @@ def sample_intersection_fleet_geom(
     stochastic arrival schedule.
 
     With per-scenario geometry there are no shared plans to cache, so the
-    batch is planned ON DEVICE in one call (``plan_courses_batch``,
-    serial-A* VMEM kernel on TPU; exact host C++ fallback per miss) — the
-    only planning path that scales to thousands of unique junctions.
+    batch is planned ON DEVICE in one call (``plan_courses_batch``, the
+    beam wavefront; exact host C++ fallback per miss) — the only planning
+    path that scales to thousands of unique junctions.
 
     Returns stacked ``(geom, world_batch, state_batch, meta)`` like
     ``sample_intersection_fleet_batched``; ``meta`` additionally carries
@@ -548,16 +546,14 @@ def sample_intersection_fleet_geom(
         for i in range(S)
     ]
     if planner == "device" and S > 1024:
-        # chunk the device planning: the serial-A* kernel's parent/prim
-        # result buffer is (batch, R, 128) int32 — ~1.9 GB per 1024
-        # scenarios; a single 10k launch exceeds HBM. One grid config is
-        # computed over the WHOLE batch so every chunk reuses the same
-        # compiled kernel (the last chunk is padded by repetition).
+        # chunk the device planning: the beam search keeps a per-scenario
+        # grid record (~28 B/cell), so one 10k-scenario launch would need
+        # tens of GB. One grid config is computed over the WHOLE batch so
+        # every chunk reuses the same compiled search (the last chunk is
+        # padded by repetition).
         from .lattice import WavefrontConfig
 
-        wf_cfg = WavefrontConfig.for_scenarios(scenarios, ntheta=40)
-        if wf_cfg.n_cells * 28 > 80.0e6:
-            wf_cfg = WavefrontConfig.for_scenarios(scenarios, ntheta=32)
+        wf_cfg = WavefrontConfig.for_scenarios(scenarios)
         CH = 1024
         courses = []
         n_dev = n_fb = 0
@@ -567,11 +563,6 @@ def sample_intersection_fleet_geom(
             out, st = plan_courses_batch(
                 chunk + [chunk[-1]] * pad, geom, planner=planner,
                 wavefront_cfg=wf_cfg,
-                # sampled junctions are up to ~30% more grid cells than
-                # the default geometry the 8192 default was tuned on; a
-                # larger budget turns host fallbacks (seconds each) into
-                # kernel iterations (microseconds each)
-                max_expansions=20000,
             )
             courses.extend(out[: len(chunk)])
             n_dev += int(st.get("n_device", 0)) - pad

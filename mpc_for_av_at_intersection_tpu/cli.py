@@ -142,7 +142,7 @@ def _cmd_fleet(args):
 
     from . import api
     from .engine import EngineConfig
-    from .parallel import batch_mesh, run_batch_episodes, stack_states, stack_worlds
+    from .parallel import batch_mesh, run_batch_episodes
 
     rng = np.random.default_rng(args.seed)
     t0 = time.perf_counter()
@@ -162,7 +162,6 @@ def _cmd_fleet(args):
     t0 = time.perf_counter()
     final, tel, summary = run_batch_episodes(
         wb, sb, EngineConfig(), geom, args.steps, mesh=mesh,
-        fast=jax.default_backend() == "tpu",
     )
     jax.block_until_ready(summary)
     t_run = time.perf_counter() - t0
@@ -258,6 +257,9 @@ def main(argv=None):
     b.set_defaults(fn=_cmd_bench)
 
     args = p.parse_args(argv)
+    from .backend import enable_compile_cache
+
+    enable_compile_cache()
     args.fn(args)
 
 

@@ -38,6 +38,7 @@ from ..agents import (
     cutoff_index_by_position,
     predict_constant_control,
 )
+from ..backend import fp32_matmuls
 from ..core.curves import compact_by_mask, nearest_index_in_direction, resample_mask
 from ..core.dynamics import SimLimits, plant_step
 from ..models import VehicleGeometry
@@ -317,6 +318,7 @@ def ego_subtick_post(
     return (ego_out, ctrl_out, cutoff_len, agent_idx, done_now), tel
 
 
+@fp32_matmuls
 def engine_tick(
     world: WorldArrays,
     st: EngineState,

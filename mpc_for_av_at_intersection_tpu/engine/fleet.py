@@ -1,8 +1,8 @@
-"""Fleet engine: natively batched closed-loop ticks (Pallas solver path).
+"""Fleet engine: natively batched closed-loop ticks.
 
 The plain batched runner vmaps the whole per-scenario tick, which forces
 the QP solver through vmapped small ops. This path splits the tick around
-the solver — vmap(pre) -> mpc_step_batched (fused Pallas ADMM) ->
+the solver — vmap(pre) -> mpc_step_batched (one batched solve) ->
 vmap(post) — for fleet-scale throughput. Semantically identical to
 vmap(engine_tick); covered by an equivalence test.
 """
@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 
 from ..agents import agents_get, agents_step, predict_constant_control
+from ..backend import fp32_matmuls
 from ..models import VehicleGeometry
 from ..mpc.batch import mpc_step_batched
 from .closed_loop import (
@@ -24,27 +25,14 @@ from .closed_loop import (
 )
 
 
-def best_pre_chunk(B: int, pre_chunk: int) -> int:
-    """Largest divisor of ``B`` that is <= ``pre_chunk`` — so chunking
-    degrades gracefully instead of silently turning off when the batch is
-    not an exact multiple (e.g. B=1536 with the default 1024 -> 768)."""
-    for c in range(min(pre_chunk, B), 0, -1):
-        if B % c == 0:
-            return c
-    return B
-
-
+@fp32_matmuls
 def engine_tick_fleet(
     world: WorldArrays,     # batched along leading axis
     st: EngineState,        # batched
     cfg: EngineConfig,
     geom: VehicleGeometry,
-    use_pallas: bool = True,
-    interpret: bool = False,
-    pre_chunk: int = 0,
 ):
     dt = cfg.mpc.dt
-    B = st.ego.shape[0]
 
     obs6 = jax.vmap(lambda p, s: agents_get(p, s, dt))(world.agent_params, st.agents)
     preds = predict_constant_control(obs6, dt, geom.wheelbase, cfg.n_pred)
@@ -57,37 +45,16 @@ def engine_tick_fleet(
                                      aidx, first, done, pr, act, cfg, geom)
         )(course, n, dl, goal, ego, ctrl, cut, aidx, first, done, pr, act)
 
-    pre_args = (
+    pre = pre_vmap(
         world.course, world.n_course, world.dl, world.goal_xy,
         st.ego, st.ctrl, st.cutoff_len, st.agent_idx, st.first_tick, st.done,
         preds, world.agent_params.active,
     )
-    chunk = best_pre_chunk(B, pre_chunk) if pre_chunk else B
-    if chunk < B:
-        # round-4 fix, now OFF by default: composed with the solver
-        # kernels, XLA used to stop fusing the whole-batch conflict scan
-        # and materialize its (B, n_obs, S, 2, 2, F) intermediates
-        # (measured then: 285 ms/tick at B=4096 vs 164 chunked). The
-        # round-5 conflict scan (circle points at pred-frame resolution +
-        # static one-hot matmul expansion) no longer defuses — unchunked
-        # measures FASTER (B=4096: 47.5 vs 50.7 ms; B=8192: 87.7 vs 94.4)
-        # and scales linearly. The machinery stays for regression safety.
-        nC = B // chunk
-
-        def chunkit(a):
-            return a.reshape((nC, chunk) + a.shape[1:])
-
-        pre = jax.lax.map(lambda a: pre_vmap(*a),
-                          jax.tree.map(chunkit, pre_args))
-        pre = jax.tree.map(lambda a: a.reshape((B,) + a.shape[2:]), pre)
-    else:
-        pre = pre_vmap(*pre_args)
     done_now, agent_idx, scan, cutoff_len, course_len_for_mpc, cv = pre
 
     out = mpc_step_batched(
         st.ego, world.course, cv, course_len_for_mpc, world.dl,
         st.ctrl, cfg.mpc, geom.wheelbase,
-        use_pallas=use_pallas, interpret=interpret,
     )
 
     (ego, ctrl, cutoff_out, aidx_out, done_out), tel = jax.vmap(
@@ -125,10 +92,8 @@ def run_fleet_episodes(
     cfg: EngineConfig,
     geom: VehicleGeometry,
     n_steps: int,
-    use_pallas: bool = True,
-    interpret: bool = False,
 ):
     def step(st, _):
-        return engine_tick_fleet(world, st, cfg, geom, use_pallas, interpret)
+        return engine_tick_fleet(world, st, cfg, geom)
 
     return jax.lax.scan(step, state0, None, length=n_steps)

@@ -35,6 +35,7 @@ from ..agents import (
     agents_step,
     predict_constant_control,
 )
+from ..backend import fp32_matmuls
 from ..models import VehicleGeometry
 from ..mpc.batch import mpc_step_batched
 from ..mpc.controller import ControllerState, init_controller_state
@@ -113,6 +114,7 @@ def init_multi_ego_state(
     )
 
 
+@fp32_matmuls
 def multi_ego_tick(
     world: MultiEgoWorld,
     st: MultiEgoState,
@@ -236,72 +238,43 @@ def _multi_ego_post(world, st, pre, out, cfg, geom):
     return new_st, tel
 
 
+@fp32_matmuls
 def multi_ego_tick_batched(
     world: MultiEgoWorld,
     st: MultiEgoState,
     cfg: EngineConfig,
     geom: VehicleGeometry,
-    use_pallas: bool = True,
-    interpret: bool = False,
 ):
     """Same semantics as ``multi_ego_tick`` but the E egos' QPs are solved
-    as ONE natively batched ``mpc_step_batched`` call (the fused Pallas
-    ADMM kernel), mirroring the fleet engine's pre -> batched solve ->
-    post split. Preferred at E >= 8; equivalence covered by tests."""
+    as ONE natively batched ``mpc_step_batched`` call, mirroring the fleet
+    engine's pre -> batched solve -> post split. Preferred at E >= 8;
+    equivalence covered by tests."""
     pre = _multi_ego_pre(world, st, cfg, geom)
     _done_now, _agent_idx, _scan, _cutoff_len, course_len_for_mpc, cv = pre
 
     out = mpc_step_batched(
         st.egos, world.courses, cv, course_len_for_mpc, world.dls,
         st.ctrls, cfg.mpc, geom.wheelbase,
-        use_pallas=use_pallas, interpret=interpret,
     )
 
     return _multi_ego_post(world, st, pre, out, cfg, geom)
 
 
+@fp32_matmuls
 def multi_ego_fleet_tick(
     world: MultiEgoWorld,      # fields batched along a leading S axis
     st: MultiEgoState,         # fields batched along a leading S axis
     cfg: EngineConfig,
     geom: VehicleGeometry,
-    use_pallas: bool = True,
-    interpret: bool = False,
-    pre_chunk_egos: int = 1024,
 ):
     """S independent multi-ego junctions in one tick: per-scenario
     prediction/pre/post are vmapped, and ALL S*E QPs are solved by one
-    ``mpc_step_batched`` call through the fused Pallas kernels (a vmapped
-    ``multi_ego_tick_batched`` would shatter the solver batch). This is the
-    throughput configuration of BASELINE config 4 (reference intent:
-    ``main/scenarios/interactive_mpc.py:117-190``).
-
-    Like ``engine_tick_fleet``, the pre stage runs as ``lax.map`` chunks
-    (of ~``pre_chunk_egos`` total egos) at large S: composed with the
-    solver kernels, XLA otherwise stops fusing the whole-batch conflict
-    scan and materializes its per-ego frame intermediates — the measured
-    S=256 -> 512 cliff in MULTIEGO_r04 (69.1 -> 262.9 ms/tick, 3.8x for 2x
-    work) is exactly the single-ego defusion PROFILE.md §2c bisected."""
-    from .fleet import best_pre_chunk
-
+    ``mpc_step_batched`` call (a vmapped ``multi_ego_tick_batched`` would
+    shatter the solver batch). This is the throughput configuration of
+    BASELINE config 4 (reference intent:
+    ``main/scenarios/interactive_mpc.py:117-190``)."""
     S, E = st.egos.shape[:2]
-
-    pre_vmap = jax.vmap(lambda w, s: _multi_ego_pre(w, s, cfg, geom))
-    chunk = (best_pre_chunk(S, max(1, pre_chunk_egos // E))
-             if pre_chunk_egos else S)
-    if chunk < S:
-        nC = S // chunk
-
-        def chunkit(a):
-            return a.reshape((nC, chunk) + a.shape[1:])
-
-        pre = jax.lax.map(
-            lambda ws: pre_vmap(*ws),
-            (jax.tree.map(chunkit, world), jax.tree.map(chunkit, st)),
-        )
-        pre = jax.tree.map(lambda a: a.reshape((S,) + a.shape[2:]), pre)
-    else:
-        pre = pre_vmap(world, st)
+    pre = jax.vmap(lambda w, s: _multi_ego_pre(w, s, cfg, geom))(world, st)
     _done_now, _agent_idx, _scan, _cutoff_len, course_len_for_mpc, cv = pre
 
     def flat(a):
@@ -311,7 +284,6 @@ def multi_ego_fleet_tick(
         flat(st.egos), flat(world.courses), flat(cv),
         flat(course_len_for_mpc), flat(world.dls),
         jax.tree.map(flat, st.ctrls), cfg.mpc, geom.wheelbase,
-        use_pallas=use_pallas, interpret=interpret,
     )
     out = jax.tree.map(lambda a: a.reshape((S, E) + a.shape[1:]), out_flat)
 
@@ -327,25 +299,17 @@ def run_multi_ego_episode(
     geom: VehicleGeometry,
     n_steps: int,
     batched: bool | None = None,
-    use_pallas: bool | None = None,
 ):
     """Run a multi-ego episode. ``batched=None`` (default) routes fleets of
-    E >= 8 egos through the natively batched solver (the fused Pallas ADMM
-    kernel on TPU) and small fleets through the vmapped per-ego tick; pass
-    an explicit bool to force either path. ``use_pallas=None`` enables the
-    Pallas kernel iff running on TPU."""
+    E >= 8 egos through the natively batched solver and small fleets
+    through the vmapped per-ego tick; pass an explicit bool to force
+    either path."""
     if batched is None:
         batched = int(world.courses.shape[0]) >= 8
-    if use_pallas is None:
-        from ..ops.admm_pallas import pallas_supported
-
-        use_pallas = pallas_supported()
 
     def step(st, _):
         if batched:
-            return multi_ego_tick_batched(
-                world, st, cfg, geom, use_pallas=use_pallas
-            )
+            return multi_ego_tick_batched(world, st, cfg, geom)
         return multi_ego_tick(world, st, cfg, geom)
 
     return jax.lax.scan(step, state0, None, length=n_steps)

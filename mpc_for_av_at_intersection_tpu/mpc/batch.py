@@ -2,9 +2,11 @@
 
 Same per-scenario semantics as ``controller.mpc_step`` (which stays the
 single-scenario reference used by the engine), but with the QP solved by
-``solve_box_qp_batched`` — i.e. the Pallas fused-ADMM kernel — instead of a
-vmapped per-scenario solver. Used by the bench and large Monte-Carlo
-sweeps. Equivalence with the vmapped path is covered by tests.
+``solve_box_qp_batched`` — one batched solve whose inner ADMM loop runs in
+the platform's implementation (``backend.stages().admm``) — instead of a
+vmapped per-scenario solver. Used by the fleet engine, the multi-ego
+engine and the bench. Equivalence with the vmapped path is covered by
+tests.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
+from ..backend import fp32_matmuls
 from ..core.dynamics import SimLimits, plant_rollout
 from .condense import condense
 from .config import MPCConfig
@@ -26,6 +29,7 @@ from .qp import solve_box_qp_batched
 from .reference import compute_reference
 
 
+@fp32_matmuls
 def mpc_step_batched(
     states,         # (B, 4)
     courses,        # (B, N, 3)
@@ -35,8 +39,6 @@ def mpc_step_batched(
     cs: ControllerState,  # fields batched along B
     cfg: MPCConfig,
     wheelbase: float,
-    use_pallas: bool = True,
-    interpret: bool = False,
 ) -> MPCStepOut:
     T = cfg.T
     nx = cfg.nx            # 5 for the jerk variant (extra accel state)
@@ -70,69 +72,27 @@ def mpc_step_batched(
         )(states, courses, course_speeds, valid_lens, dls, target_idx, ov, have_ov)
         xref, target_idx, reaches_end = ref
 
-        if use_pallas:
-            # fused rollout + linearize + condense kernel (canonical nx=4
-            # AND jerk nx=5): the XLA version of this stage (two T-step
-            # scans + small batched matmuls) was 66.8 ms of the 80 ms
-            # controller tick at B=4096 (PROFILE_r04). With polish on
-            # (every shipped config), the QP tensors stay in the
-            # kernel-native lanes layout end-to-end: condense -> Ruiz +
-            # ADMM (in-kernel) -> polish, no (B, ...) transposes between.
-            from ..ops.condense_pallas import build_qp_pallas
+        controls = jnp.stack([oa, od], axis=-1)              # (B, T, 2)
+        xbar = jax.vmap(
+            lambda s, u: plant_rollout(s, u, cfg.dt, wheelbase, limits)
+        )(states, controls)
+        dref = jnp.zeros((B, T), dtype)
+        A, B_, C = jax.vmap(
+            lambda v, p, d: linearize_bicycle(v, p, d, cfg.dt, wheelbase,
+                                              nx=nx)
+        )(xbar[:, :-1, 2], xbar[:, :-1, 3], dref)
 
-            cqp = build_qp_pallas(
-                states, oa, od, xref, reaches_end, cfg, wheelbase,
-                interpret=interpret, lanes_out=cfg.polish,
-            )
-        else:
-            controls = jnp.stack([oa, od], axis=-1)              # (B, T, 2)
-            xbar = jax.vmap(
-                lambda s, u: plant_rollout(s, u, cfg.dt, wheelbase, limits)
-            )(states, controls)
-            dref = jnp.zeros((B, T), dtype)
-            A, B_, C = jax.vmap(
-                lambda v, p, d: linearize_bicycle(v, p, d, cfg.dt, wheelbase,
-                                                  nx=nx)
-            )(xbar[:, :-1, 2], xbar[:, :-1, 3], dref)
-
-            cqp = jax.vmap(
-                lambda a, b, c, s, r, e: _condense(a, b, c, s, r, e, cfg)
-            )(A, B_, C, states, xref, reaches_end)
-        from ..ops.condense_pallas import LanesQP
-
-        if isinstance(cqp, LanesQP):
-            from ..ops.admm_pallas import LANES
-            from .qp import solve_box_qp_lanes
-
-            warm_p = warm
-            if warm_p is not None:
-                pad = (LANES - B % LANES) % LANES
-
-                def padd(a):
-                    return (jnp.concatenate(
-                        [a, jnp.repeat(a[-1:], pad, axis=0)], 0)
-                        if pad else a)
-
-                warm_p = tuple(padd(a) for a in warm_p)
-            sol = solve_box_qp_lanes(
-                cqp.P_l, cqp.q_l, cqp.G_l, cqp.lo_l, cqp.hi_l, cqp.B0,
-                rounds=checks, iters=check_iters,
-                rho0=cfg.admm_rho, sigma=cfg.admm_sigma,
-                alpha=cfg.admm_alpha, interpret=interpret,
-                warm=warm_p, eps=s_eps, refactor_band=s_band,
-                stall_cap=s_cap, stall_ratio=s_ratio,
-                ruiz_iters=cfg.admm_ruiz_iters,
-            )
-        else:
-            sol = solve_box_qp_batched(
-                cqp.P, cqp.q, cqp.G, cqp.lo, cqp.hi,
-                rounds=checks, iters=check_iters,
-                rho0=cfg.admm_rho, sigma=cfg.admm_sigma, alpha=cfg.admm_alpha,
-                polish=cfg.polish, use_pallas=use_pallas, interpret=interpret,
-                warm=warm, eps=s_eps, refactor_band=s_band,
-                stall_cap=s_cap, stall_ratio=s_ratio,
-                ruiz_iters=cfg.admm_ruiz_iters,
-            )
+        cqp = jax.vmap(
+            lambda a, b, c, s, r, e: _condense(a, b, c, s, r, e, cfg)
+        )(A, B_, C, states, xref, reaches_end)
+        sol = solve_box_qp_batched(
+            cqp.P, cqp.q, cqp.G, cqp.lo, cqp.hi,
+            rounds=checks, iters=check_iters,
+            rho0=cfg.admm_rho, sigma=cfg.admm_sigma, alpha=cfg.admm_alpha,
+            polish=cfg.polish, warm=warm, eps=s_eps, refactor_band=s_band,
+            stall_cap=s_cap, stall_ratio=s_ratio,
+            ruiz_iters=cfg.admm_ruiz_iters,
+        )
         warm = (sol.x, sol.y, sol.rho) if cfg.warm_start_qp else None
         # jerk variant: decision vector is [u_flat (2T); a0] — controls are
         # the first 2T entries either way

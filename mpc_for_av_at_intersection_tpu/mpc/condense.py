@@ -2,7 +2,7 @@
 
 The reference builds the QP sparsely in CVXPY (state trajectory as decision
 variables, dynamics as equality constraints — ``main/lib/mpc.py:148-191``)
-and hands it to ECOS. On TPU we eliminate the states through the affine
+and hands it to ECOS. Here we eliminate the states through the affine
 time-varying dynamics instead: with X = [x_1..x_T] = F u + g, the problem
 becomes
 
@@ -10,8 +10,8 @@ becomes
 
 with u in R^{2T} (T=13 -> 26 vars), P dense 2Tx2T, and G stacking the
 velocity rows of F, the input boxes, and the steer-rate differences
-(m = 4T-1 rows). Small dense batched matmuls — exactly what the MXU wants;
-no sparse KKT factorization needed.
+(m = 4T-1 rows). Small dense batched matmuls; no sparse KKT factorization
+needed.
 
 Cost blocks (parity with mpc.py:156-184):
   t = 1..T  tracking: anisotropic xy quadratic rotated to the reference yaw
@@ -29,6 +29,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from ..backend import fp32_matmuls
 from .config import MPCConfig
 
 
@@ -90,16 +91,13 @@ def _tracking_blocks(xref, reaches_end, cfg: MPCConfig, dtype):
     return jnp.where(end, Qf[None], Q)
 
 
+@fp32_matmuls
 def condense(A, B, C, x0, xref, reaches_end, cfg: MPCConfig) -> CondensedQP:
     """Build the dense condensed QP for one scenario/tick. vmap to batch.
 
-    Runs under true-f32 matmul precision: TPU's default bf16x3 passes in
-    the F'QF products measurably perturb the QP data."""
-    with jax.default_matmul_precision("float32"):
-        return _condense_impl(A, B, C, x0, xref, reaches_end, cfg)
-
-
-def _condense_impl(A, B, C, x0, xref, reaches_end, cfg: MPCConfig) -> CondensedQP:
+    Runs with every matmul at full fp32 (``backend.fp32_matmuls``):
+    reduced-precision passes in the F'QF products measurably perturb the
+    QP data."""
     T, nu = cfg.T, cfg.nu
     nx = 4
     dtype = A.dtype

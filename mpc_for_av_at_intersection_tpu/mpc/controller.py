@@ -20,6 +20,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from ..backend import fp32_matmuls
 from ..core.dynamics import SimLimits, plant_rollout
 from .condense import condense
 from .config import MPCConfig
@@ -108,6 +109,7 @@ def qp_carry_update(sol, solved, cfg: MPCConfig):
     )
 
 
+@fp32_matmuls
 def mpc_step(
     state4,            # (4,) x, y, v, yaw
     course,            # (N, 3) padded course (post-cutoff)

@@ -1,3 +1,1 @@
-from .admm_pallas import admm_iterations_pallas, pallas_supported
-
-__all__ = ["admm_iterations_pallas", "pallas_supported"]
+"""Hand-written GPU kernels (Pallas through Triton); see ops/admm_triton.py."""

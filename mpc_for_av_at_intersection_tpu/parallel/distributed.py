@@ -1,17 +1,17 @@
 """Multi-process (multi-host) entry path.
 
 The reference has no distributed execution at all (SURVEY §2.a); this is
-the first-class TPU-native scale-out design of SURVEY §5.8: each host
-process owns its local chips, ``jax.distributed.initialize`` wires the
-processes into one runtime, and the scenario batch shards over the global
-2-axis ``(hosts, chips)`` mesh. Collectives over the combined axis reduce
-hierarchically — ICI within a host's chips, DCN (here: Gloo/TCP when
-emulating on CPU processes) across hosts.
+the scale-out design of SURVEY §5.8: each host process owns its local
+devices, ``jax.distributed.initialize`` wires the processes into one
+runtime, and the scenario batch shards over the global 2-axis
+``(hosts, chips)`` mesh. Collectives over the combined axis cross hosts
+(Gloo/TCP when emulating on CPU processes).
 
-On a real TPU pod slice, run one process per host with the default
-``jax.distributed.initialize()`` (TPU metadata supplies the topology). For
-single-host environments the same program is exercised end-to-end by
-launching N CPU processes against a localhost coordinator — see
+On a GPU cluster, run one process per host and give every process the
+coordinator's address (``host:port`` of process 0), the number of
+processes and its own id: nothing in the environment supplies them. On a
+single host the same program is exercised end-to-end by launching N CPU
+processes against a localhost coordinator — see
 ``python -m mpc_for_av_at_intersection_tpu.parallel.fleet_worker``.
 """
 
@@ -24,18 +24,18 @@ __all__ = ["initialize_process", "global_host_chip_mesh"]
 
 
 def initialize_process(
-    coordinator_address: Optional[str] = None,
-    num_processes: Optional[int] = None,
-    process_id: Optional[int] = None,
+    coordinator_address: str,
+    num_processes: int,
+    process_id: int,
     emulate_local_devices: Optional[int] = None,
 ) -> None:
-    """Join this process to the distributed runtime.
+    """Join this process to the distributed runtime through the
+    coordinator at ``coordinator_address``.
 
-    With no arguments (real TPU pod): topology comes from the TPU metadata
-    service. With explicit arguments + ``emulate_local_devices``: forces
-    that many virtual CPU devices per process first, so a laptop/CI host
-    can execute the exact multi-host program (the only difference from a
-    pod run is the collective transport).
+    With ``emulate_local_devices``: forces that many virtual CPU devices
+    per process first, so a single host can execute the exact multi-host
+    program (the only difference from a cluster run is the collective
+    transport).
 
     Must be called before any JAX backend initialization.
     """
@@ -53,21 +53,18 @@ def initialize_process(
 
     import jax
 
-    kwargs = {}
-    if coordinator_address is not None:
-        kwargs = dict(
-            coordinator_address=coordinator_address,
-            num_processes=num_processes,
-            process_id=process_id,
-        )
-    jax.distributed.initialize(**kwargs)
+    jax.distributed.initialize(
+        coordinator_address=coordinator_address,
+        num_processes=num_processes,
+        process_id=process_id,
+    )
 
 
 def global_host_chip_mesh():
     """The global ``(hosts, chips)`` mesh over every device in the job.
 
-    Axis 0 groups devices by owning process (DCN-crossing on a pod), axis 1
-    is the process-local chips (ICI). Valid only after
+    Axis 0 groups devices by owning process (crossing hosts), axis 1 is
+    the process-local devices. Valid only after
     ``initialize_process``.
     """
     import jax

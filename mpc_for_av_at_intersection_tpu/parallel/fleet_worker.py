@@ -12,8 +12,8 @@ the shard_map'd fleet over the global ``(hosts, chips)`` mesh, and prints
 the psum'd (replicated) fleet summary as one JSON line — identical on all
 processes, and identical to a single-process run of the same batch.
 
-On a real pod, omit --coordinator/--emulate-local-devices; the TPU
-metadata service supplies the topology.
+On a GPU cluster, omit --emulate-local-devices and point --coordinator at
+process 0's host.
 """
 
 from __future__ import annotations
@@ -74,9 +74,9 @@ def _globalize(tree, mesh):
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--coordinator", default=None)
-    ap.add_argument("--num-processes", type=int, default=None)
-    ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--coordinator", required=True)
+    ap.add_argument("--num-processes", type=int, required=True)
+    ap.add_argument("--process-id", type=int, required=True)
     ap.add_argument("--emulate-local-devices", type=int, default=None)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--steps", type=int, default=3)

@@ -2,24 +2,26 @@
 
 The reference is strictly sequential single-process (SURVEY section 2.a);
 parallelism here is first-class new design. Within one scenario all coupling
-(vehicle pairs, the condensed QP) fits on a chip, so the only distributed
-axis is the *scenario batch*: episodes are sharded across devices with
-``shard_map`` (ICI within a slice, DCN across hosts) and cross-device
-communication is limited to ``psum`` metric aggregation — the
-collectives-for-scale-out-only design of SURVEY section 5.8.
+(vehicle pairs, the condensed QP) fits on one device, so the only
+distributed axis is the *scenario batch*: episodes are sharded across
+devices with ``shard_map`` and cross-device communication is limited to
+``psum`` metric aggregation — the collectives-for-scale-out-only design of
+SURVEY section 5.8.
 """
 
 from __future__ import annotations
 
-from functools import lru_cache, partial
+from functools import lru_cache
 from typing import Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, PartitionSpec as P
 
-from ..engine.closed_loop import EngineConfig, EngineState, WorldArrays, run_episode
+from ..backend import platform, stages
+from ..engine.closed_loop import EngineConfig, EngineState, WorldArrays
+from ..engine.fleet import run_fleet_episodes
 from ..models import VehicleGeometry
 
 
@@ -30,14 +32,11 @@ def batch_mesh(devices=None) -> Mesh:
 
 
 def host_chip_mesh(n_hosts: int, devices=None) -> Mesh:
-    """2-axis ``(hosts, chips)`` mesh — the SURVEY §5.8 topology.
-
-    On a real multi-host slice the outer axis crosses DCN and the inner
-    axis rides ICI; collectives placed over ``('hosts', 'chips')`` then
-    reduce hierarchically. In this single-host environment the same mesh
-    shape over virtual CPU devices *emulates* the ≥2-host row: the
-    program (shardings, collectives, lowering) is identical to what a
-    2-host run would execute, only the transport differs.
+    """2-axis ``(hosts, chips)`` mesh for a multi-host cluster — the SURVEY
+    §5.8 topology, whose outer axis crosses hosts. The scenario batch
+    shards over both axes flattened, so it runs the same program as the
+    flat ``batch`` mesh. Within one host, where every device reaches every
+    other at the same rate, use ``batch_mesh``.
     """
     devices = np.asarray(devices if devices is not None else jax.devices())
     n = devices.size
@@ -65,31 +64,41 @@ def _summarize(final, tel):
 
 @lru_cache(maxsize=16)
 def _cached_batch_runner(cfg: EngineConfig, geom: VehicleGeometry,
-                         n_steps: int, fast: bool, use_pallas: bool):
-    """Memoized jitted single-device batch-episode program (episodes +
-    telemetry transpose + summary as ONE executable); all key parts are
-    hashable frozen dataclasses."""
-    if fast:
-        from ..engine.fleet import run_fleet_episodes
+                         n_steps: int, platform_name: str, stage_set,
+                         mesh: Optional[Mesh]):
+    """Memoized jitted batch-episode program (episodes + telemetry
+    transpose + summary as ONE executable): without it every call
+    re-traced the n_steps scan and dispatched the epilogue op by op. All
+    key parts are hashable (frozen dataclasses, the mesh); the platform and
+    its stages are part of the key because they pick what is traced into
+    the program."""
 
-        def vrun(w, s):
-            final, tel = run_fleet_episodes(
-                w, s, cfg, geom, n_steps, use_pallas=use_pallas
-            )
-            tel = jax.tree.map(lambda a: jnp.moveaxis(a, 0, 1), tel)
-            return final, tel
-    else:
-        def vrun(w, s):
-            return jax.vmap(
-                lambda w_, s_: run_episode(w_, s_, cfg, geom, n_steps)
-            )(w, s)
+    def vrun(w, s):
+        # the fleet engine's (T, B, ...) telemetry, as (B, T, ...)
+        final, tel = run_fleet_episodes(w, s, cfg, geom, n_steps)
+        return final, jax.tree.map(lambda a: jnp.moveaxis(a, 0, 1), tel)
 
-    @jax.jit
-    def run(w, s):
+    if mesh is None:
+        def run(w, s):
+            final, tel = vrun(w, s)
+            return final, tel, _summarize(final, tel)
+
+        return jax.jit(run)
+
+    # the scenario batch axis shards over EVERY mesh axis flattened — a 1-D
+    # ('batch',) mesh and the 2-axis ('hosts', 'chips') topology run the
+    # same program; the psum reduces over the combined axes
+    axes = tuple(mesh.axis_names)
+    spec = P(axes if len(axes) > 1 else axes[0])
+
+    def shard_fn(w, s):
         final, tel = vrun(w, s)
-        return final, tel, _summarize(final, tel)
+        summary = jax.tree.map(lambda x: jax.lax.psum(x, axes),
+                               _summarize(final, tel))
+        return final, tel, summary
 
-    return run
+    return jax.jit(jax.shard_map(shard_fn, mesh=mesh, in_specs=(spec, spec),
+                                 out_specs=(spec, spec, P())))
 
 
 def run_batch_episodes(
@@ -99,75 +108,16 @@ def run_batch_episodes(
     geom: VehicleGeometry,
     n_steps: int,
     mesh: Optional[Mesh] = None,
-    fast: bool = False,
 ):
-    """Run a batch of scenarios in lockstep.
-
-    Without a mesh: plain vmap (single device). With a mesh: shard_map over
-    the 'batch' axis — per-device vmap plus a psum'd fleet summary, so the
-    cross-device reduction rides ICI collectives. With ``fast=True``, the
-    per-device execution uses the fleet engine (batched tick around the
-    Pallas solver) instead of vmapping the whole tick; note its telemetry
-    is (T, B, ...) transposed to (B, T, ...) for a uniform return.
+    """Run a batch of scenarios in lockstep through the fleet engine
+    (batched tick around one batched solve; semantically ``vmap`` of
+    ``run_episode``, telemetry as (B, T, ...)). Without a mesh the batch
+    runs on one device. With a mesh: shard_map over the mesh axes — the
+    per-device fleet engine plus a psum'd fleet summary.
 
     Returns (final_states, telemetry, summary) where summary is a small
     replicated dict: scenarios finished, ticks-to-goal sum, solve failures.
     """
-    if fast:
-        from ..engine.fleet import run_fleet_episodes
-
-        use_pallas = jax.default_backend() == "tpu"
-
-        def vrun(w, s):
-            final, tel = run_fleet_episodes(
-                w, s, cfg, geom, n_steps, use_pallas=use_pallas
-            )
-            tel = jax.tree.map(lambda a: jnp.moveaxis(a, 0, 1), tel)
-            return final, tel
-    else:
-        vrun = jax.vmap(lambda w, s: run_episode(w, s, cfg, geom, n_steps))
-
-    def summarize(final, tel):
-        return {
-            "n_done": jnp.sum(final.done.astype(jnp.int32)),
-            "ticks_to_goal_sum": jnp.sum(final.ticks_to_goal),
-            "n_unsolved_ticks": jnp.sum((~tel.solved).astype(jnp.int32)),
-        }
-
-    if mesh is None:
-        # one cached jitted program for the whole batch-episode run:
-        # without this every call re-traced the n_steps scan and dispatched
-        # the epilogue op-by-op (~2s of host overhead per fleet run —
-        # measured as most of the gap between the raw 40 ms fleet tick and
-        # bench.py's episode-bracket throughput)
-        runner = _cached_batch_runner(
-            cfg, geom, n_steps, fast,
-            jax.default_backend() == "tpu" if fast else False,
-        )
-        return runner(world_batch, state_batch)
-
-    # the scenario batch axis shards over EVERY mesh axis flattened — a 1-D
-    # ('batch',) mesh and the 2-axis ('hosts', 'chips') topology run the
-    # same program; the psum reduces over the combined axes (hierarchical
-    # DCN+ICI reduction on a real multi-host slice)
-    axes = tuple(mesh.axis_names)
-    batch_spec = P(axes if len(axes) > 1 else axes[0])
-
-    def shard_fn(w, s):
-        final, tel = vrun(w, s)
-        local = summarize(final, tel)
-        summary = jax.tree.map(lambda x: jax.lax.psum(x, axes), local)
-        return final, tel, summary
-
-    specs_in = (
-        jax.tree.map(lambda _: batch_spec, world_batch),
-        jax.tree.map(lambda _: batch_spec, state_batch),
-    )
-    out_shape = jax.eval_shape(vrun, world_batch, state_batch)
-    specs_out = (
-        jax.tree.map(lambda _: batch_spec, out_shape[0]),
-        jax.tree.map(lambda _: batch_spec, out_shape[1]),
-        {k: P() for k in ("n_done", "ticks_to_goal_sum", "n_unsolved_ticks")},
-    )
-    fn = jax.shard_map(shard_fn, mesh=mesh, in_specs=specs_in, out_specs=specs_out)
-    return fn(world_batch, state_batch)
+    run = _cached_batch_runner(cfg, geom, n_steps, platform(), stages(),
+                               mesh)
+    return run(world_batch, state_batch)

@@ -4,7 +4,7 @@ The reference ships a 342-line tkinter click-the-grid demo
 (``main/planner/A_star_naive.py``): a 25x25 board, 8-connected
 unit-weight moves (diagonals cost 1 too), Manhattan heuristic, explored
 cells and the recovered path painted on the buttons. tkinter has no place
-in a headless TPU framework, so this twin keeps the exact search semantics
+in a headless batch framework, so this twin keeps the exact search semantics
 — driven through the framework's generic ``lattice.astar.AStar`` oracle —
 and renders the same three layers (obstacles, explored set, path) as
 either an ASCII board or a matplotlib figure.

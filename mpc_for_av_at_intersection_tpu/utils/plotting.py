@@ -124,7 +124,7 @@ def primitive_fanout_trajectories(
     """Recursive motion-primitive fan-out (the reference's pedagogical
     ``lib/generate_MPs_multiple.py:37`` / ``generate_MPs_single.py:15``
     demos — constant-velocity Euler bicycle arcs branched over a steering
-    fan for ``levels`` generations). TPU-shaped rather than per-trajectory
+    fan for ``levels`` generations). Batched rather than per-trajectory
     Python recursion: level k rolls ALL num_mps^k frontier poses x num_mps
     steers as one batched ``bicycle_rollout``.
 

@@ -259,33 +259,38 @@ def solve_sparse_qp(qp: SparseQP, iters=40000, rho=0.5, rho_eq_scale=1e3, sigma=
         y = y + rho_vec * (st - s_new)
         s = s_new
 
-    # exact polish on the active set
+    # exact polish on a guessed active set: first the dual-identified set,
+    # then primal proximity |Az - bound| at a ladder of tolerances (an ADMM
+    # run that stalls near 1e-6 leaves small spurious duals on inactive
+    # rows). A candidate counts only with admissible dual signs; the one
+    # with the smallest KKT residual wins over the raw ADMM iterate.
     Az = A @ z
+    best = (z, y, kkt_residuals(P, q, A, lo, hi, z, y))
     act = eq | (y > 1e-8) | (y < -1e-8) | (np.abs(Az - lo) < 1e-7) | (np.abs(Az - hi) < 1e-7)
     act_lo = (~eq) & act & (np.abs(Az - lo) <= np.abs(Az - hi))
-    b = np.where(eq, lo, np.where(act_lo, lo, hi))
-    Aact = A[act]
-    bact = b[act]
-    k = Aact.shape[0]
-    K = np.block([[P, Aact.T], [Aact, np.zeros((k, k))]])
-    rhs = np.concatenate([-q, bact])
-    try:
-        sol, *_ = np.linalg.lstsq(K, rhs, rcond=None)
+    guesses = [(act_lo, (~eq) & act & ~act_lo)]
+    scale = 1.0 + np.maximum(np.abs(lo), np.abs(hi))
+    for tol in (1e-9, 1e-7, 1e-6, 1e-5, 1e-4):
+        near_lo = (~eq) & (Az - lo <= tol * scale)
+        guesses.append((near_lo, (~eq) & (hi - Az <= tol * scale) & ~near_lo))
+    for g_lo, g_hi in guesses:
+        act = eq | g_lo | g_hi
+        b = np.where(eq | g_lo, lo, hi)
+        Aact = A[act]
+        k = Aact.shape[0]
+        K = np.block([[P, Aact.T], [Aact, np.zeros((k, k))]])
+        try:
+            sol, *_ = np.linalg.lstsq(K, np.concatenate([-q, b[act]]), rcond=None)
+        except np.linalg.LinAlgError:
+            continue
         zp = sol[:n]
-        nu = sol[n:n + k]
         yp = np.zeros(m)
-        yp[act] = nu
-        stat_p, prim_p, comp_p = kkt_residuals(P, q, A, lo, hi, zp, yp)
-        stat_a, prim_a, comp_a = kkt_residuals(P, q, A, lo, hi, z, y)
-        # verify duals have admissible signs on the polished active set
-        sign_ok = np.all(yp[act & ~eq & act_lo] <= 1e-7) and np.all(
-            yp[act & ~eq & ~act_lo] >= -1e-7
-        )
-        if sign_ok and max(stat_p, prim_p, comp_p) < max(stat_a, prim_a, comp_a):
-            return zp, yp, (stat_p, prim_p, comp_p)
-    except np.linalg.LinAlgError:
-        pass
-    return z, y, kkt_residuals(P, q, A, lo, hi, z, y)
+        yp[act] = sol[n:n + k]
+        sign_ok = np.all(yp[g_lo] <= 1e-7) and np.all(yp[g_hi] >= -1e-7)
+        res = kkt_residuals(P, q, A, lo, hi, zp, yp)
+        if sign_ok and max(res) < max(best[2]):
+            best = (zp, yp, res)
+    return best
 
 
 def extract_controls(qp: SparseQP, z: np.ndarray) -> np.ndarray:

@@ -3,7 +3,7 @@
 These are *fresh* implementations of the behaviors documented in SURVEY.md
 (with reference file:line cites), written sequentially/scalar the way the
 original research code behaves, used as golden oracles for the vectorized
-TPU implementations. They intentionally keep the reference's quirks
+JAX implementations. They intentionally keep the reference's quirks
 (velocity-then-accel plant splitting, two-phase yaw unwrap, floor-mask
 resampling, 3-point directional nearest index).
 """

@@ -1,4 +1,4 @@
-"""Fleet engine (batched tick around the Pallas solver) vs vmapped engine."""
+"""Fleet engine (batched tick around one batched solve) vs vmapped engine."""
 
 import numpy as np
 import pytest
@@ -6,7 +6,11 @@ import pytest
 import jax
 
 from mpc_for_av_at_intersection_tpu import api
-from mpc_for_av_at_intersection_tpu.engine import EngineConfig, run_fleet_episodes
+from mpc_for_av_at_intersection_tpu.engine import (
+    EngineConfig,
+    run_episode,
+    run_fleet_episodes,
+)
 from mpc_for_av_at_intersection_tpu.parallel import (
     run_batch_episodes,
     stack_states,
@@ -20,9 +24,10 @@ def test_fleet_engine_matches_vmapped_engine():
     wb, sb = stack_worlds(worlds), stack_states(states)
     cfg = EngineConfig()
 
-    f_ref, t_ref, _ = run_batch_episodes(wb, sb, cfg, geom, 40)
+    f_ref, t_ref = jax.jit(jax.vmap(
+        lambda w, s: run_episode(w, s, cfg, geom, 40)))(wb, sb)
     f_new, t_new = jax.jit(
-        lambda w, s: run_fleet_episodes(w, s, cfg, geom, 40, use_pallas=False)
+        lambda w, s: run_fleet_episodes(w, s, cfg, geom, 40)
     )(wb, sb)
 
     # telemetry from the vmapped path is (B, T, ...); fleet path is (T, B, ...)
@@ -41,52 +46,19 @@ def test_fleet_engine_matches_vmapped_engine():
 
 
 def test_fleet_fast_path_through_batch_runner():
-    """run_batch_episodes(fast=True) returns the uniform (B, T) telemetry
-    layout and matches the slow path's summary."""
+    """run_batch_episodes (the dispatched runner) returns the uniform
+    (B, T) telemetry layout and matches vmap(run_episode)'s outcome."""
     rng = np.random.default_rng(1)
     geom, worlds, states, _ = api.sample_intersection_fleet(4, rng, n_steps=25)
     wb, sb = stack_worlds(worlds), stack_states(states)
     cfg = EngineConfig()
 
-    f1, t1, s1 = run_batch_episodes(wb, sb, cfg, geom, 25, fast=False)
-    f2, t2, s2 = run_batch_episodes(wb, sb, cfg, geom, 25, fast=True)
+    f1, t1 = jax.jit(jax.vmap(
+        lambda w, s: run_episode(w, s, cfg, geom, 25)))(wb, sb)
+    f2, t2, s2 = run_batch_episodes(wb, sb, cfg, geom, 25)
     assert np.asarray(t2.x).shape == np.asarray(t1.x).shape
     np.testing.assert_allclose(np.asarray(t2.x), np.asarray(t1.x), atol=2e-4)
-    assert int(s1["n_done"]) == int(s2["n_done"])
-
-
-def test_chunked_pre_matches_unchunked():
-    """The lax.map-chunked pre stage (large-fleet fusion fix) must be
-    tick-identical to the plain vmapped pre."""
-    from mpc_for_av_at_intersection_tpu.engine.fleet import engine_tick_fleet
-    from mpc_for_av_at_intersection_tpu.models import bicycle_geometry
-
-    rng = np.random.default_rng(1)
-    geom, worlds, states, _ = api.sample_intersection_fleet(6, rng, n_steps=20)
-    wb, sb = stack_worlds(worlds), stack_states(states)
-    cfg = EngineConfig()
-
-    tick_a = jax.jit(
-        lambda w, s: engine_tick_fleet(w, s, cfg, geom, use_pallas=False,
-                                       pre_chunk=0)
-    )
-    tick_b = jax.jit(
-        lambda w, s: engine_tick_fleet(w, s, cfg, geom, use_pallas=False,
-                                       pre_chunk=2)
-    )
-    st_a = st_b = sb
-    for _ in range(8):
-        st_a, tel_a = tick_a(wb, st_a)
-        st_b, tel_b = tick_b(wb, st_b)
-        np.testing.assert_allclose(
-            np.asarray(st_b.ego), np.asarray(st_a.ego), atol=1e-6
-        )
-        np.testing.assert_array_equal(
-            np.asarray(st_b.cutoff_len), np.asarray(st_a.cutoff_len)
-        )
-        np.testing.assert_array_equal(
-            np.asarray(tel_b.collision_found), np.asarray(tel_a.collision_found)
-        )
+    assert int(np.asarray(f1.done).sum()) == int(s2["n_done"])
 
 
 def test_batched_fleet_builder_matches_loop_builder():

@@ -106,7 +106,7 @@ def test_batched_tick_matches_vmapped_tick():
 
     tick_a = jax.jit(lambda s: multi_ego_tick(world, s, cfg, geom))
     tick_b = jax.jit(
-        lambda s: multi_ego_tick_batched(world, s, cfg, geom, use_pallas=False)
+        lambda s: multi_ego_tick_batched(world, s, cfg, geom)
     )
     for _ in range(12):
         st_a, tel_a = tick_a(st_a)
@@ -146,10 +146,10 @@ def test_fleet_tick_matches_batched_tick():
         lambda a: jax.numpy.broadcast_to(a, (S,) + a.shape), st)
 
     tick1 = jax.jit(
-        lambda s: multi_ego_tick_batched(world, s, cfg, geom, use_pallas=False)
+        lambda s: multi_ego_tick_batched(world, s, cfg, geom)
     )
     tickS = jax.jit(
-        lambda w, s: multi_ego_fleet_tick(w, s, cfg, geom, use_pallas=False)
+        lambda w, s: multi_ego_fleet_tick(w, s, cfg, geom)
     )
     for _ in range(6):
         st, tel1 = tick1(st)
@@ -162,50 +162,3 @@ def test_fleet_tick_matches_batched_tick():
             np.asarray(telS.accel)[0], np.asarray(tel1.accel), atol=2e-3
         )
         assert np.array_equal(np.asarray(stS.done)[0], np.asarray(st.done))
-
-
-def test_fleet_chunked_pre_matches_unchunked():
-    """The lax.map-chunked multi-ego pre stage (large-S fusion fix, mirror
-    of the fleet engine's) must be tick-identical to the vmapped pre."""
-    from mpc_for_av_at_intersection_tpu.engine.multi_ego import (
-        multi_ego_fleet_tick,
-    )
-
-    geom = bicycle_geometry()
-    table = primitive_table(geom)
-    trajs = [
-        _course(geom, table, start_pos=1, turn=2),
-        _course(geom, table, start_pos=4, turn=1),
-    ]
-    cfg = EngineConfig()
-    params, ag = stack_agents([], n_slots=cfg.n_agents)
-    world = make_multi_ego_world(trajs, params, cfg)
-    st = init_multi_ego_state(world, ag, cfg, 12)
-
-    S = 4
-    worldS = jax.tree.map(
-        lambda a: jax.numpy.broadcast_to(a, (S,) + a.shape), world)
-    stS = jax.tree.map(
-        lambda a: jax.numpy.broadcast_to(a, (S,) + a.shape), st)
-
-    tick_a = jax.jit(
-        lambda w, s: multi_ego_fleet_tick(w, s, cfg, geom, use_pallas=False,
-                                          pre_chunk_egos=0)
-    )
-    tick_b = jax.jit(
-        lambda w, s: multi_ego_fleet_tick(w, s, cfg, geom, use_pallas=False,
-                                          pre_chunk_egos=2)   # chunk S by 1
-    )
-    st_a = st_b = stS
-    for _ in range(6):
-        st_a, tel_a = tick_a(worldS, st_a)
-        st_b, tel_b = tick_b(worldS, st_b)
-        np.testing.assert_allclose(
-            np.asarray(st_b.egos), np.asarray(st_a.egos), atol=1e-6
-        )
-        np.testing.assert_array_equal(
-            np.asarray(st_b.cutoff_lens), np.asarray(st_a.cutoff_lens)
-        )
-        np.testing.assert_array_equal(
-            np.asarray(tel_b.collision_found), np.asarray(tel_a.collision_found)
-        )

@@ -1,11 +1,12 @@
 """Sweep subsystem + offline visualization smoke/behavior tests."""
 
-import matplotlib
+import pytest
 
+# plotting is an optional dependency (imported lazily by the package)
+matplotlib = pytest.importorskip("matplotlib")
 matplotlib.use("Agg")
 
 import numpy as np
-import pytest
 
 from mpc_for_av_at_intersection_tpu import api, sweep
 from mpc_for_av_at_intersection_tpu.lattice import SearchWeights

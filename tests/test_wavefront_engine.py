@@ -1,5 +1,5 @@
 """Device-planned course feeding the closed-loop engine: the full
-TPU-native bi-level pipeline (wavefront plan -> batched MPC tracking)."""
+on-device bi-level pipeline (wavefront plan -> batched MPC tracking)."""
 
 import numpy as np
 import pytest
